@@ -48,11 +48,6 @@ import time
 
 import numpy as np
 
-if os.environ.get("QLDPC_PLATFORM"):
-    import jax
-
-    jax.config.update("jax_platforms", os.environ["QLDPC_PLATFORM"])
-
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(_ROOT, "tests"))
 sys.path.insert(0, _ROOT)
@@ -102,7 +97,7 @@ def _decode_side_batch(H, syn, p, dec_type, iters, layers, osd_order,
                        bf_residual):
     """Decode all shots of one side, preferring the native C++ oracle."""
     import oracle
-    from qldpcsim_tpu.gf2.native import (bp_decode_native, ms_decode_native,
+    from qldpcsim_jax.gf2.native import (bp_decode_native, ms_decode_native,
                                          osd_decode_native)
 
     B = syn.shape[0]
@@ -147,7 +142,7 @@ def _decode_side_batch(H, syn, p, dec_type, iters, layers, osd_order,
 def oracle_qbler(code, p, shots, dec_type, iters, schedule, osd_order, seed,
                  bf_residual="mod2", oracle_mode="native"):
     """Reference-semantics pipeline on the CPU oracle decoders."""
-    from qldpcsim_tpu.decoders import layerize
+    from qldpcsim_jax.decoders import layerize
 
     Hx, Hz, err_x, err_z, sy_z, sy_x = _sample_channel(code, p, shots, seed)
     serial = schedule == "S"
@@ -182,7 +177,7 @@ def oracle_qbler(code, p, shots, dec_type, iters, schedule, osd_order, seed,
 
 def engine_qbler(code, p, shots, dec_type, iters, schedule, osd_order, seed,
                  bf_residual="mod2"):
-    from qldpcsim_tpu.engine.montecarlo import SimConfig, simulate_p
+    from qldpcsim_jax.engine.montecarlo import SimConfig, simulate_p
 
     cfg = SimConfig(shots=shots, dec_type=dec_type, dec_iterations=iters,
                     dec_schedule=schedule, osd_order=osd_order, rng_seed=seed,
@@ -193,7 +188,7 @@ def engine_qbler(code, p, shots, dec_type, iters, schedule, osd_order, seed,
 
 def run_one(name, code_name, p, n_new, n_ref, dec_type, iters, schedule,
             osd_order=-1, seed=0, bf_residual="mod2", oracle_mode="native"):
-    from qldpcsim_tpu.codes import get_code
+    from qldpcsim_jax.codes import get_code
 
     if oracle_mode == "reference" and dec_type == "BF":
         # the literal reference BF is the bool-residual decoder

@@ -23,16 +23,11 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("QLDPC_PLATFORM"):
-    import jax
-
-    jax.config.update("jax_platforms", os.environ["QLDPC_PLATFORM"])
-
 
 def run_config(name, code_name, p_list, shots, dec_type, iters, schedule,
                osd_order=-1, seed=0, batch=0):
-    from qldpcsim_tpu.codes import get_code
-    from qldpcsim_tpu.engine.montecarlo import ShotPipeline, SimConfig, simulate_p
+    from qldpcsim_jax.codes import get_code
+    from qldpcsim_jax.engine.montecarlo import ShotPipeline, SimConfig, simulate_p
 
     code = get_code(code_name)
     cfg = SimConfig(shots=shots, dec_type=dec_type, dec_iterations=iters,
@@ -82,11 +77,9 @@ def main(argv=None):
         # 4. Tanner, MS serial, p-sweep (config 4)
         ("4_tanner_ms_serial", "tanner",
          list(np.round(np.linspace(0.01, 0.1, 4), 3)), int(65536 * s), "MS", 30, "S", -1),
-        # 5. LP04/LP118, BP + OSD-2 (config 5; >=1e6 shots now that the
-        # deferred group OSD path runs at >1.4M shots/s warm). 99
-        # iterations = the reference CLI default (simulator.py:356);
-        # r5 also measured deeper BP FASTER end-to-end here (fewer OSD
-        # entrants: 1.41M vs 1.32M warm at 30 iters) with better qBLER.
+        # 5. LP04/LP118, BP + OSD-2 (config 5). 99 iterations = the
+        # reference CLI default (simulator.py:356); deeper BP also sends
+        # fewer shots into OSD.
         ("5_lp04_bp_osd2", "lp04_0", [0.03], int(1048576 * s), "BP", 99, "F", 2),
         ("5_lp118_bp_osd2", "lp118_0", [0.03], int(2621440 * s), "BP", 99, "F", 2),
     ]

@@ -8,9 +8,8 @@ Two jobs:
      computes the same thing.
   2. Weak-scaling throughput per device count.
 
-On a real multi-chip slice this measures ICI scaling; on one chip (this
-environment) run with QLDPC_PLATFORM=cpu and
-XLA_FLAGS=--xla_force_host_platform_device_count=8 for an 8-virtual-device
+On a multi-GPU host this measures mesh scaling; with JAX_PLATFORMS=cpu and
+XLA_FLAGS=--xla_force_host_platform_device_count=8 it is an 8-virtual-device
 functional demonstration (absolute CPU throughput is not the story).
 
 Usage: python benchmarks/scaling.py [--code lp118_0] [--shots 8192]
@@ -24,20 +23,15 @@ import os
 import sys
 import time
 
-if os.environ.get("QLDPC_PLATFORM"):
-    import jax
-
-    jax.config.update("jax_platforms", os.environ["QLDPC_PLATFORM"])
-
 
 def run(code_name: str, shots: int, dec_iterations: int, n_dev: int,
         batch: int, p: float):
     import jax
     import numpy as np
 
-    from qldpcsim_tpu.codes import get_code
-    from qldpcsim_tpu.engine.montecarlo import ShotPipeline, SimConfig, simulate_p
-    from qldpcsim_tpu.parallel.mesh import make_mesh
+    from qldpcsim_jax.codes import get_code
+    from qldpcsim_jax.engine.montecarlo import ShotPipeline, SimConfig, simulate_p
+    from qldpcsim_jax.parallel.mesh import make_mesh
 
     code = get_code(code_name)
     mesh = make_mesh(np.asarray(jax.devices()[:n_dev])) if n_dev > 1 else None

@@ -1,7 +1,7 @@
 """Multi-PROCESS (multi-host-shaped) scaling benchmark.
 
-BASELINE.md north star: ">=85% linear scaling from 1 to 2 hosts". No
-multi-host TPU slice exists in this environment, so this harness measures
+BASELINE.md north star: ">=85% linear scaling from 1 to 2 hosts". This
+harness measures
 the real thing the multi-host path adds — jax.distributed initialization,
 cross-process device visibility, and psum-reduced counters — with N OS
 processes on the CPU backend (1 device per process, exactly the SURVEY §4.4
@@ -15,7 +15,7 @@ are asserted bit-exact across process counts (layout-invariant RNG tiles).
 Every process is pinned to ONE core (taskset): XLA's CPU client otherwise
 parallelizes a single process over all host cores, which would make the
 1-process baseline a whole-host number and understate scaling — on a real
-pod slice each host drives its own chips, which one pinned core models.
+cluster each host drives its own cards, which one pinned core models.
 
 Usage: python benchmarks/scaling_multihost.py [--procs 1 2] [--shots 16384]
 Emits one JSON line per process count.
@@ -39,12 +39,12 @@ _CHILD = textwrap.dedent("""
     import jax
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, %(root)r)
-    from qldpcsim_tpu.parallel.mesh import multihost_init, make_mesh
+    from qldpcsim_jax.parallel.mesh import multihost_init, make_mesh
 
     multihost_init()
     import numpy as np
-    from qldpcsim_tpu.codes import get_code
-    from qldpcsim_tpu.engine.montecarlo import ShotPipeline, SimConfig, simulate_p
+    from qldpcsim_jax.codes import get_code
+    from qldpcsim_jax.engine.montecarlo import ShotPipeline, SimConfig, simulate_p
 
     code = get_code(os.environ["SMH_CODE"])
     shots = int(os.environ["SMH_SHOTS"])

@@ -1,7 +1,7 @@
 // gf2core — native host-side runtime: bit-packed GF(2) linear algebra and a
 // reference-semantics CPU min-sum decoder.
 //
-// Role in the framework (the TPU does the hot Monte-Carlo path; this is the
+// Role in the framework (the accelerator does the hot Monte-Carlo path; this is the
 // native host runtime around it):
 //   * word-parallel GF(2) elimination used by preprocessing (rank/RREF/
 //     nullspace of parity-check matrices, logical-operator extraction) —
@@ -13,7 +13,7 @@
 //     exit) used for host-side validation of qBLER curves at scale and as the
 //     measured "reference CPU simulator" class baseline.
 //
-// C ABI only; bound from Python via ctypes (qldpcsim_tpu/gf2/native.py).
+// C ABI only; bound from Python via ctypes (qldpcsim_jax/gf2/native.py).
 
 #include <cstdint>
 #include <cstring>
@@ -297,7 +297,7 @@ int bp_decode_cpu_mt(const int8_t* H, int m, int n,
 
 // ---------------------------------------------------------------------------
 // Batched CPU ordered-statistics post-decoder matching the framework's OSD
-// semantics (qldpcsim_tpu/decoders/osd.py; reference control flow
+// semantics (qldpcsim_jax/decoders/osd.py; reference control flow
 // decoders.py:299-369 with the corrected independent 2^order enumeration):
 //   reliability = max(prob, 1-prob) from float32 LLRs clipped to +-100,
 //   stable ascending argsort, least-reliable-basis by first-independent
@@ -483,7 +483,7 @@ int ms_decode_cpu_mt(const int8_t* H, int m, int n,
     return 0;
 }
 
-// ABI version handshake: qldpcsim_tpu/gf2/native.py checks this after CDLL
+// ABI version handshake: qldpcsim_jax/gf2/native.py checks this after CDLL
 // load and rebuilds on mismatch — bump whenever any exported signature
 // changes (an mtime check alone cannot catch a stale .so after a checkout).
 int gf2core_abi_version() { return 2; }

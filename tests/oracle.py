@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from qldpcsim_tpu import gf2
+from qldpcsim_jax import gf2
 
 
 def ms_decode(H, syndrome, p, max_iter, layers, beta=0.75):

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from qldpcsim_tpu import gf2
-from qldpcsim_tpu.codes import (
+from qldpcsim_jax import gf2
+from qldpcsim_jax.codes import (
     CODE_REGISTRY,
     code_from_files,
     get_code,
@@ -83,6 +83,6 @@ def test_unknown_code_raises():
     with pytest.raises(KeyError):
         get_code("nope")
     with pytest.raises(ValueError):
-        from qldpcsim_tpu.codes import qc_ldpc_lifted_code
+        from qldpcsim_jax.codes import qc_ldpc_lifted_code
 
         qc_ldpc_lifted_code("LP04", 4)

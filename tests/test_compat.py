@@ -1,10 +1,10 @@
-"""Reference-compatible API shims (qldpcsim_tpu.compat): reference users'
+"""Reference-compatible API shims (qldpcsim_jax.compat): reference users'
 imports and call patterns must work unchanged (qLDPCsim surface:
 decoders.py, PCMlibrary.py, gf2math.py, simulator.py)."""
 
 import numpy as np
 
-from qldpcsim_tpu.compat import PCMlibrary, PMClibrary, decoders, gf2math, simulator
+from qldpcsim_jax.compat import PCMlibrary, PMClibrary, decoders, gf2math, simulator
 
 
 def test_pcmlibrary_surface():

@@ -4,8 +4,8 @@
 import numpy as np
 import pytest
 
-from qldpcsim_tpu.codes import get_code
-from qldpcsim_tpu.decoders import (
+from qldpcsim_jax.codes import get_code
+from qldpcsim_jax.decoders import (
     DecoderConfig,
     TannerGraph,
     build_layers,
@@ -318,7 +318,7 @@ def test_one_sided_code_end_to_end():
     builder guards this case, simulator.py:58-68) runs through the full
     engine: X errors decode through Hz as usual, Z errors have no
     constraints (e_hat_z = 0) and only X-side statistics accumulate."""
-    from qldpcsim_tpu.engine.montecarlo import SimConfig, simulate_p
+    from qldpcsim_jax.engine.montecarlo import SimConfig, simulate_p
 
     Hz = np.array([[1, 1, 0, 1, 0, 1, 1],
                    [0, 1, 1, 1, 1, 0, 1],

@@ -6,9 +6,9 @@ import json
 import numpy as np
 import pytest
 
-from qldpcsim_tpu.codes import get_code
-from qldpcsim_tpu.engine.montecarlo import ShotPipeline, SimConfig, simulate_p
-from qldpcsim_tpu.engine.results import format_results_table
+from qldpcsim_jax.codes import get_code
+from qldpcsim_jax.engine.montecarlo import ShotPipeline, SimConfig, simulate_p
+from qldpcsim_jax.engine.results import format_results_table
 
 
 def _run(codename, **kw):
@@ -60,7 +60,7 @@ def test_fused_dispatch_counter_parity():
     import jax
     import jax.numpy as jnp
 
-    from qldpcsim_tpu.parallel.mesh import chunk_keys
+    from qldpcsim_jax.parallel.mesh import chunk_keys
 
     code = get_code("steane")
     cfg = SimConfig(shots=512, dec_iterations=20, rng_seed=11, batch_size=128)
@@ -125,7 +125,7 @@ def test_osd_fused_matches_host_compaction():
     import jax
     import jax.numpy as jnp
 
-    from qldpcsim_tpu.parallel.mesh import chunk_keys
+    from qldpcsim_jax.parallel.mesh import chunk_keys
 
     code = get_code("lp04_0")
     shots, batch, p, seed = 320, 128, 0.06, 13
@@ -178,7 +178,7 @@ def test_osd_defer_overflow_path():
     import jax
     import jax.numpy as jnp
 
-    from qldpcsim_tpu.parallel.mesh import chunk_keys
+    from qldpcsim_jax.parallel.mesh import chunk_keys
 
     code = get_code("lp04_0")
     shots, batch, p, seed = 512, 512, 0.22, 3
@@ -254,7 +254,7 @@ def test_checkpoint_resume(tmp_path):
     full = simulate_p(code.Hx, code.Hz, 0.03,
                       SimConfig(checkpoint_dir=str(tmp_path / "a"), **base))
     # Simulate a preempted run: pre-seed a checkpoint halfway, then resume.
-    from qldpcsim_tpu.utils.checkpoint import CheckpointStore
+    from qldpcsim_jax.utils.checkpoint import CheckpointStore
 
     store = CheckpointStore(str(tmp_path / "b"))  # noqa: F841 (dir creation)
     partial = simulate_p(code.Hx, code.Hz, 0.03,
@@ -280,7 +280,7 @@ def test_results_table_and_json():
 
 
 def test_cli_end_to_end(tmp_path, capsys):
-    from qldpcsim_tpu.cli import main
+    from qldpcsim_jax.cli import main
 
     out = tmp_path / "res.jsonl"
     rc = main(["--code", "steane", "--p", "0.01", "0.03", "--shots", "64",
@@ -296,7 +296,7 @@ def test_cli_end_to_end(tmp_path, capsys):
 
 
 def test_cli_file_inputs(tmp_path, capsys):
-    from qldpcsim_tpu.cli import main
+    from qldpcsim_jax.cli import main
 
     code = get_code("shor")
     hx, hz = tmp_path / "hx.npy", tmp_path / "hz.npy"
@@ -314,9 +314,9 @@ def test_layer_compat_cross_wiring():
     structure; for Shor they differ and rows beyond the decode matrix are
     clipped instead of crashing."""
     import numpy as np
-    from qldpcsim_tpu.codes import get_code
-    from qldpcsim_tpu.decoders import build_layers
-    from qldpcsim_tpu.engine.montecarlo import ShotPipeline, SimConfig, simulate_p
+    from qldpcsim_jax.codes import get_code
+    from qldpcsim_jax.decoders import build_layers
+    from qldpcsim_jax.engine.montecarlo import ShotPipeline, SimConfig, simulate_p
 
     code = get_code("shor")
     # Cross-wired: decoding Hz (6 rows) with layers from Hx (2 rows).
@@ -338,7 +338,7 @@ def test_compact_indices_matches_stable_argsort():
     mask, including empty, full, and overflow-past-cap cases."""
     import jax.numpy as jnp
 
-    from qldpcsim_tpu.engine.montecarlo import _compact_indices
+    from qldpcsim_jax.engine.montecarlo import _compact_indices
 
     rng = np.random.default_rng(5)
     for B, cap in ((64, 16), (64, 64), (128, 32)):
@@ -498,43 +498,29 @@ def test_group_cascade_overflow_fallback():
     assert r_new.counters == r_old.counters
 
 
-def test_first_dispatch_cpu_fallback(monkeypatch):
-    """simulate_p's first-dispatch fallback: when the decode graph fails
-    to compile on the default backend (the contained compiler SIGSEGV for
-    BP on tiny matrices — DIVERGENCES 'Execution environment'), the
-    pipeline rebuilds on the CPU backend and the counters equal a plain
-    CPU run (RNG tile contract)."""
-    import warnings
-
+def test_first_dispatch_failure_raises():
+    """A compile or dispatch failure surfaces to the caller, at the first
+    dispatch as mid-run: no rebuild on another backend hides which device
+    produced the counters."""
     code = get_code("steane")
     base = dict(shots=512, dec_type="MS", dec_iterations=10, rng_seed=4,
                 batch_size=256)
-    ref = simulate_p(code.Hx, code.Hz, 0.03, SimConfig(**base))
-
     pipe = ShotPipeline(code.Hx, code.Hz, SimConfig(**base))
-    calls = {"n": 0}
-    orig = pipe._multi_counts
 
     def boom(*a, **k):
-        calls["n"] += 1
         raise RuntimeError("synthetic compile failure")
 
     pipe._multi_counts = boom
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        r = simulate_p(code.Hx, code.Hz, 0.03, SimConfig(**base),
-                       pipeline=pipe)
-    assert calls["n"] == 1
-    assert any("falling back to CPU" in str(x.message) for x in w)
-    assert r.counters == ref.counters
+    with pytest.raises(RuntimeError, match="synthetic compile failure"):
+        simulate_p(code.Hx, code.Hz, 0.03, SimConfig(**base), pipeline=pipe)
 
-    # mid-run failures must re-raise, not silently switch layouts
     pipe2 = ShotPipeline(code.Hx, code.Hz, SimConfig(**base))
     orig2 = pipe2._multi_counts
+    calls = {"m": 0}
 
     def boom_later(*a, **k):
-        if calls.setdefault("m", 0) == 0:
-            calls["m"] = 1
+        calls["m"] += 1
+        if calls["m"] == 1:
             return orig2(*a, **k)
         raise RuntimeError("synthetic mid-run failure")
 

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from qldpcsim_tpu import gf2
+from qldpcsim_jax import gf2
 
 
 def _random_binary(rng, m, n, density=0.3):
@@ -86,7 +86,7 @@ def test_systematic_form_rank_deficient():
 
 
 def test_logical_ops_all_library_codes():
-    from qldpcsim_tpu.codes import get_code
+    from qldpcsim_jax.codes import get_code
 
     for name in ("shor", "steane", "bicycle", "lp04_0"):
         code = get_code(name)
@@ -105,7 +105,7 @@ def test_logical_ops_all_library_codes():
 
 
 def test_css_k_matches_reference_counts():
-    from qldpcsim_tpu.codes import get_code
+    from qldpcsim_jax.codes import get_code
 
     expected = {"shor": 1, "steane": 1}
     for name, k in expected.items():

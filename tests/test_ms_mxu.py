@@ -4,10 +4,10 @@ different fp association — decisions must agree except on numerical ties."""
 import numpy as np
 import pytest
 
-from qldpcsim_tpu.codes import get_code
-from qldpcsim_tpu.decoders import DecoderConfig, TannerGraph, build_layers
-from qldpcsim_tpu.decoders.ms import make_ms_decoder
-from qldpcsim_tpu.decoders.ms_mxu import make_ms_mxu_decoder, supports
+from qldpcsim_jax.codes import get_code
+from qldpcsim_jax.decoders import DecoderConfig, TannerGraph, build_layers
+from qldpcsim_jax.decoders.ms import make_ms_decoder
+from qldpcsim_jax.decoders.ms_mxu import make_ms_mxu_decoder, supports
 
 
 def _syn(rng, H, n_shots, p):
@@ -52,8 +52,8 @@ def test_mxu_rejects_serial_big():
 
 @pytest.mark.parametrize("codename,schedule", [("steane", "F"), ("lp04_0", "L")])
 def test_bp_mxu_agrees_with_edge(codename, schedule):
-    from qldpcsim_tpu.decoders.bp import make_bp_decoder
-    from qldpcsim_tpu.decoders.bp_mxu import make_bp_mxu_decoder
+    from qldpcsim_jax.decoders.bp import make_bp_decoder
+    from qldpcsim_jax.decoders.bp_mxu import make_bp_mxu_decoder
 
     rng = np.random.default_rng(6)
     H = np.asarray(get_code(codename).Hz)

@@ -19,8 +19,8 @@ import textwrap
 
 import pytest
 
-from qldpcsim_tpu.codes import get_code
-from qldpcsim_tpu.engine.montecarlo import SimConfig, simulate_p
+from qldpcsim_jax.codes import get_code
+from qldpcsim_jax.engine.montecarlo import SimConfig, simulate_p
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -31,7 +31,7 @@ _CHILD = textwrap.dedent("""
     import jax
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, %r)
-    from qldpcsim_tpu.parallel.mesh import multihost_init, make_mesh
+    from qldpcsim_jax.parallel.mesh import multihost_init, make_mesh
 
     # env-var detection path (JAX_COORDINATOR_ADDRESS / _NUM_PROCESSES /
     # _PROCESS_ID set by the parent); must run before any backend query.
@@ -40,19 +40,19 @@ _CHILD = textwrap.dedent("""
     assert jax.process_count() == 2, jax.process_count()
     assert len(jax.devices()) == 2, jax.devices()
 
-    from qldpcsim_tpu.codes import get_code
-    from qldpcsim_tpu.engine.montecarlo import SimConfig, simulate_p
+    from qldpcsim_jax.codes import get_code
+    from qldpcsim_jax.engine.montecarlo import SimConfig, simulate_p
 
     code = get_code("steane")
     cfg = SimConfig(shots=%d, dec_type="MS", dec_iterations=%d, rng_seed=%d,
-                    batch_size=%d, mesh=make_mesh(), device="default")
+                    batch_size=%d, mesh=make_mesh(), device="auto")
     r = simulate_p(code.Hx, code.Hz, %r, cfg)
 
     # p-sweep over the ('p','shots') mesh ACROSS the two processes: each
     # process owns one p-row; per-p counters must come back global.
-    from qldpcsim_tpu.engine.montecarlo import simulate_sweep
+    from qldpcsim_jax.engine.montecarlo import simulate_sweep
     cfg2 = SimConfig(shots=%d, dec_type="MS", dec_iterations=%d, rng_seed=%d,
-                     batch_size=%d, mesh_p=2, device="default")
+                     batch_size=%d, mesh_p=2, device="auto")
     sweep = simulate_sweep(code.Hx, code.Hz, [%r, 0.06], cfg2)
 
     # exec_mode='perdevice' on the SAME multi-process mesh: each process
@@ -63,11 +63,11 @@ _CHILD = textwrap.dedent("""
     # hangs). Counters must be bit-exact by the RNG tile contract.
     cfg_pd = SimConfig(shots=%d, dec_type="MS", dec_iterations=%d,
                        rng_seed=%d, batch_size=%d, mesh=make_mesh(),
-                       device="default", exec_mode="perdevice")
+                       device="auto", exec_mode="perdevice")
     r_pd = simulate_p(code.Hx, code.Hz, %r, cfg_pd)
     cfg_pds = SimConfig(shots=%d, dec_type="MS", dec_iterations=%d,
                         rng_seed=%d, batch_size=%d, mesh_p=2,
-                        device="default", exec_mode="perdevice")
+                        device="auto", exec_mode="perdevice")
     sweep_pd = simulate_sweep(code.Hx, code.Hz, [%r, 0.06], cfg_pds)
     with open(os.environ["QLDPC_MH_OUT"] + str(jax.process_index()), "w") as f:
         json.dump({"single": r.counters,
@@ -139,7 +139,7 @@ def test_multihost_init_noop_without_context(monkeypatch):
     """No launch context -> no-op False, and the local backend is untouched
     (the r2 bug: jax.process_count() before initialize() poisoned the init
     path and a blanket except hid it)."""
-    from qldpcsim_tpu.parallel import mesh
+    from qldpcsim_jax.parallel import mesh
 
     for v in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
               "JAX_PROCESS_ID"):

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from qldpcsim_tpu import gf2
-from qldpcsim_tpu.gf2 import native
-from qldpcsim_tpu.gf2.dense import pack_rows
+from qldpcsim_jax import gf2
+from qldpcsim_jax.gf2 import native
+from qldpcsim_jax.gf2.dense import pack_rows
 
 import oracle
 
@@ -22,7 +22,7 @@ def test_native_rank_matches_python(rng):
         os.environ["QLDPC_NATIVE"] = "0"
         try:
             # pure-python path
-            from qldpcsim_tpu.gf2.dense import _eliminate_packed
+            from qldpcsim_jax.gf2.dense import _eliminate_packed
             piv, _ = _eliminate_packed(P.copy(), n, reduced=False)
         finally:
             os.environ["QLDPC_NATIVE"] = "1"
@@ -34,7 +34,7 @@ def test_native_eliminate_transform(rng):
     R = pack_rows(A)
     T = pack_rows(np.eye(12, dtype=np.uint8))
     piv = native.eliminate_native(R, 20, T, reduced=True)
-    from qldpcsim_tpu.gf2.dense import unpack_rows
+    from qldpcsim_jax.gf2.dense import unpack_rows
 
     B = unpack_rows(R, 20)
     Tm = unpack_rows(T, 12)
@@ -47,8 +47,8 @@ def test_native_eliminate_transform(rng):
 
 
 def test_native_ms_matches_oracle(rng):
-    from qldpcsim_tpu.codes import get_code
-    from qldpcsim_tpu.decoders import layerize
+    from qldpcsim_jax.codes import get_code
+    from qldpcsim_jax.decoders import layerize
 
     H = np.asarray(get_code("lp04_0").Hz)
     n = H.shape[1]
@@ -73,7 +73,7 @@ def test_native_abi_handshake():
     """The loaded library's exported ABI version must match the binding's
     expectation (gf2/native.py rebuilds on mismatch — an mtime check alone
     cannot catch a stale .so after a checkout)."""
-    from qldpcsim_tpu.gf2 import native
+    from qldpcsim_jax.gf2 import native
 
     lib = native.get_lib()
     if lib is None:

@@ -4,8 +4,8 @@ NumPy oracle, plus the syndrome-consistency property (SURVEY.md §4.2)."""
 import numpy as np
 import pytest
 
-from qldpcsim_tpu.codes import get_code
-from qldpcsim_tpu.decoders import DecoderConfig, TannerGraph, make_ms_decoder, make_osd
+from qldpcsim_jax.codes import get_code
+from qldpcsim_jax.decoders import DecoderConfig, TannerGraph, make_ms_decoder, make_osd
 
 import oracle
 
@@ -74,7 +74,7 @@ def test_apply_osd_odd_batch_window():
     identical to applying OSD to the failed shots directly."""
     import jax.numpy as jnp
 
-    from qldpcsim_tpu.engine.montecarlo import ShotPipeline, SimConfig
+    from qldpcsim_jax.engine.montecarlo import ShotPipeline, SimConfig
 
     code = get_code("lp04_0")
     B = 250  # gcd(250, 256) = 2: the old path would have run 125 windows

@@ -5,13 +5,12 @@ import jax
 import numpy as np
 import pytest
 
-from qldpcsim_tpu.codes import get_code
-from qldpcsim_tpu.engine.montecarlo import ShotPipeline, SimConfig, simulate_p
-from qldpcsim_tpu.parallel import make_mesh
+from qldpcsim_jax.codes import get_code
+from qldpcsim_jax.engine.montecarlo import ShotPipeline, SimConfig, simulate_p
+from qldpcsim_jax.parallel import make_mesh
 
 
-pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
-                                reason="needs 8 virtual devices")
+pytestmark = pytest.mark.usefixtures("eight_devices")
 
 
 def test_sharded_counters_bit_exact():
@@ -80,8 +79,7 @@ def test_mesh_device_count_invariance_bit_exact():
 
 def test_perdevice_exec_mode_bit_exact():
     """exec_mode='perdevice' (one single-device dispatch per mesh device,
-    host-side reduction — the fallback for backends whose shard_map
-    partitioner is broken) must equal the shard_map counters AND the
+    host-side reduction) must equal the shard_map counters AND the
     single-device counters bit-exactly, including with OSD in the loop."""
     code = get_code("lp04_0")
     base = dict(shots=512, dec_type="BP", dec_iterations=8, rng_seed=5,
@@ -115,7 +113,7 @@ def test_perdevice_partial_chunk():
 def test_perdevice_sweep_bit_exact():
     """simulate_sweep under exec_mode='perdevice' (per (p-row, device)
     dispatch on the 2-D grid) reproduces the serial per-p counters."""
-    from qldpcsim_tpu.engine.montecarlo import simulate_sweep
+    from qldpcsim_jax.engine.montecarlo import simulate_sweep
 
     code = get_code("steane")
     ps = [0.01, 0.03, 0.05, 0.07]
@@ -133,33 +131,19 @@ def test_perdevice_sweep_bit_exact():
         assert rp.avg_iterations_x == rs.avg_iterations_x
 
 
-def test_perdevice_fallback_on_failure():
-    """with_perdevice_fallback: a primary that raises at dispatch is
-    permanently replaced by the fallback (the shard_map failure-recovery
-    path), with a RuntimeWarning."""
-    import warnings
+def test_shardmap_failure_raises(monkeypatch):
+    """A shard_map failure surfaces to the caller: no silent switch to
+    per-device dispatch hides which execution path ran."""
+    from qldpcsim_jax.parallel import mesh as mesh_mod
 
-    from qldpcsim_tpu.parallel.mesh import with_perdevice_fallback
+    def broken(mesh, fn, axis="shots"):
+        def run(*a):
+            raise RuntimeError("partitioner exploded")
+        return run
 
-    calls = {"primary": 0, "fb_built": 0, "fb": 0}
-
-    def primary(*a):
-        calls["primary"] += 1
-        raise RuntimeError("partitioner exploded")
-
-    def build_fb():
-        calls["fb_built"] += 1
-
-        def fb(*a):
-            calls["fb"] += 1
-            return {"ok": sum(a)}
-
-        return fb
-
-    run = with_perdevice_fallback(primary, build_fb)
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        assert run(1, 2) == {"ok": 3}
-    assert any("falling back" in str(x.message) for x in w)
-    assert run(3, 4) == {"ok": 7}
-    assert calls == {"primary": 1, "fb_built": 1, "fb": 2}
+    monkeypatch.setattr(mesh_mod, "shard_multi_chunk_fn", broken)
+    code = get_code("steane")
+    cfg = SimConfig(shots=512, dec_type="MS", dec_iterations=5, rng_seed=1,
+                    batch_size=512, mesh=make_mesh())
+    with pytest.raises(RuntimeError, match="partitioner exploded"):
+        simulate_p(code.Hx, code.Hz, 0.03, cfg)

@@ -8,12 +8,11 @@ import jax
 import numpy as np
 import pytest
 
-from qldpcsim_tpu.codes import get_code
-from qldpcsim_tpu.engine.montecarlo import (SimConfig, simulate_p,
+from qldpcsim_jax.codes import get_code
+from qldpcsim_jax.engine.montecarlo import (SimConfig, simulate_p,
                                             simulate_sweep)
 
-pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
-                                reason="needs 8 virtual devices")
+pytestmark = pytest.mark.usefixtures("eight_devices")
 
 
 def _serial(code, ps, cfg):
@@ -49,7 +48,7 @@ def test_psweep_checkpoint_resume(tmp_path):
                           SimConfig(checkpoint_dir=str(tmp_path / "a"), **base))
     # simulate preemption: run one group only, then resume in a fresh call
     ckdir = tmp_path / "b"
-    import qldpcsim_tpu.utils.checkpoint as ck
+    import qldpcsim_jax.utils.checkpoint as ck
 
     orig_save = ck.CheckpointStore.save
     calls = {"n": 0}
@@ -80,7 +79,7 @@ def test_psweep_cli(tmp_path, capsys):
     """--mesh-p end-to-end through the CLI (the production surface)."""
     import json
 
-    from qldpcsim_tpu.cli import main
+    from qldpcsim_jax.cli import main
 
     code = get_code("steane")
     hx, hz = tmp_path / "hx.npy", tmp_path / "hz.npy"

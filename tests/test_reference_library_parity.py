@@ -17,8 +17,8 @@ import pytest
 
 from refimport import _load_by_path, load_reference, reference_available
 
-from qldpcsim_tpu import gf2
-from qldpcsim_tpu.codes import get_code
+from qldpcsim_jax import gf2
+from qldpcsim_jax.codes import get_code
 
 pytestmark = pytest.mark.skipif(not reference_available(),
                                 reason="reference tree not present")

@@ -41,10 +41,10 @@ import pytest
 
 import oracle
 from refimport import load_reference, reference_available
-from qldpcsim_tpu.codes import get_code
-from qldpcsim_tpu.decoders import (TannerGraph, DecoderConfig, make_decoder,
+from qldpcsim_jax.codes import get_code
+from qldpcsim_jax.decoders import (TannerGraph, DecoderConfig, make_decoder,
                                    make_osd, layerize)
-from qldpcsim_tpu.gf2.native import bp_decode_native, ms_decode_native
+from qldpcsim_jax.gf2.native import bp_decode_native, ms_decode_native
 
 pytestmark = pytest.mark.skipif(not reference_available(),
                                 reason="reference tree not present")
@@ -266,7 +266,7 @@ def test_osd0_matches_reference():
     ref = _ref()
     H, e0, sf, post = _failed_shots("lp04_0", 0.08, 400, seed=11)
     e0, sf, post = e0[:10], sf[:10], post[:10]
-    osd = make_osd(H, 0, platform="cpu")
+    osd = make_osd(H, 0)
     e_my = np.asarray(osd(e0, sf, post)) % 2
     for k in range(len(sf)):
         e_r = ref.OSDdec(H, e0[k].copy().astype(np.int64), sf[k],
@@ -297,7 +297,7 @@ def test_osd2_never_heavier_than_reference():
     ref = _ref()
     H, e0, sf, post = _failed_shots("lp04_0", 0.08, 400, seed=13)
     e0, sf, post = e0[:10], sf[:10], post[:10]
-    osd = make_osd(H, 2, platform="cpu")
+    osd = make_osd(H, 2)
     e_my = np.asarray(osd(e0, sf, post)) % 2
     for k in range(len(sf)):
         e_r = np.asarray(ref.OSDdec(H, e0[k].copy().astype(np.int64), sf[k],

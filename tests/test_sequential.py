@@ -6,11 +6,11 @@ decisions must agree except on numerical ties (same class as the mxu tests).
 import numpy as np
 import pytest
 
-from qldpcsim_tpu.codes import get_code
-from qldpcsim_tpu.decoders import DecoderConfig, TannerGraph, build_layers, make_decoder
-from qldpcsim_tpu.decoders.ms import make_ms_decoder
-from qldpcsim_tpu.decoders.bp import make_bp_decoder
-from qldpcsim_tpu.decoders import sequential as seq
+from qldpcsim_jax.codes import get_code
+from qldpcsim_jax.decoders import DecoderConfig, TannerGraph, build_layers, make_decoder
+from qldpcsim_jax.decoders.ms import make_ms_decoder
+from qldpcsim_jax.decoders.bp import make_bp_decoder
+from qldpcsim_jax.decoders import sequential as seq
 
 
 def _syn(rng, H, n_shots, p):

@@ -4,8 +4,8 @@ full-depth decoding (decoders/tworound.py invariant)."""
 import numpy as np
 import pytest
 
-from qldpcsim_tpu.codes import get_code
-from qldpcsim_tpu.decoders import DecoderConfig, TannerGraph, make_decoder
+from qldpcsim_jax.codes import get_code
+from qldpcsim_jax.decoders import DecoderConfig, TannerGraph, make_decoder
 
 
 def _shots(rng, H, n_shots, p):
@@ -49,7 +49,7 @@ def test_highp_guard_serial_equals_full():
     rng = np.random.default_rng(7)
     H = np.asarray(get_code("lp04_0").Hz)
     graph = TannerGraph.build(H)
-    from qldpcsim_tpu.decoders.common import build_layers
+    from qldpcsim_jax.decoders.common import build_layers
 
     layers = build_layers(H, "S")
     for p in (0.03, 0.30):     # guard idle / guard firing
